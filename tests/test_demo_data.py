@@ -33,7 +33,8 @@ def test_demo_map_store_loads():
 
     maps = load_map_store("demo")
     md = util.get_obj_dict(maps)
-    assert set(md) == {"oval", "country", "urban", "crossroad"}
+    assert set(md) == {"oval", "country", "urban", "crossroad", "twolane",
+                       "twolane_oncoming", "twolane_parking"}
 
     oval = md["oval"]
     assert oval.closed_path
@@ -167,3 +168,25 @@ def test_scenario_snapshot_resume(tmp_path):
         # (reference core.py:68 resets sim.t = 0.0 on reload)
         assert 0.0 < s2.t < t0
         assert s2.ego.x > x0 + 0.5  # still driving from the frozen pose
+
+
+@pytest.mark.parametrize("ego_x,t,oncoming_x,finished", [
+    (114.9, 45.0, (0.0, 0.0), False),    # stalled behind the parked car
+    (160.0, 20.0, (100.0, 120.0), False),  # not past the parked car
+    (224.0, 20.0, (100.0, 230.0), False),  # an oncoming car not met yet
+    (224.0, 19.0, (100.0, 180.0), False),  # before the 20 s mark
+    (224.0, 20.0, (100.0, 180.0), True),
+])
+def test_parked_oncoming_finishes_only_past_the_cars(ego_x, t, oncoming_x,
+                                                     finished):
+    """demo/parked_oncoming has no timeout: a stalled ego never finishes,
+    so every closed-loop gate on it catches a stall."""
+    from tpl_tpu.simulation.state import load_sim_state
+
+    sim = load_sim_state("demo/parked_oncoming")
+    assert sim.init_planning_params == "parked_oncoming"
+    sim.ego.x, sim.t = ego_x, t
+    for car, x in zip([c for c in sim.cars if c.reverse], oncoming_x):
+        car.x = x
+    sim.manager.update(sim)
+    assert bool(sim.finished) == finished

@@ -524,12 +524,9 @@ def _lon_trilerp(nodes, s, v, a, pp, AL):
 
 
 def lon_oracle_backward(dist_path, path, pp):
-    """Naive per-cell lon backward pass on the PADDED a-axis (the kernel
-    pads a_steps up to a multiple of 8; padded levels lie above a_max and
-    are never addressed by the clamped trilerp)."""
+    """Naive per-cell lon backward pass."""
     T, S, V = pp.t_steps, pp.s_steps, pp.v_steps
-    AL = pp.a_steps
-    A = AL if AL % 8 == 0 else AL + (8 - AL % 8)
+    A = pp.a_steps
     NB = 9
     dt = F(pp.dt)
 
@@ -538,7 +535,7 @@ def lon_oracle_backward(dist_path, path, pp):
     vs = F(pp.v_min) + np.arange(V, dtype=F) * F(pp.v_max - pp.v_min) \
         / F(V - 1)
     aas = F(pp.a_min) + np.arange(A, dtype=F) * F(pp.a_max - pp.a_min) \
-        / F(AL - 1)
+        / F(A - 1)
     js = F(pp.j_min) + F(pp.j_max - pp.j_min) \
         * np.arange(NB, dtype=F) / F(NB - 1)
 
@@ -592,7 +589,7 @@ def lon_oracle_backward(dist_path, path, pp):
                         vn = max(F(0.0), F(v + a * dt
                                            + F(0.5) * j * dt * dt))
                         an = F(a + j * dt)
-                        nn = _lon_trilerp(nxt, sn, vn, an, pp, AL)
+                        nn = _lon_trilerp(nxt, sn, vn, an, pp, A)
                         cost = state_cost + nn[0]
                         constr = state_constr + nn[1]
                         cost += F(pp.w_snap) * F(nn[2] - j) ** 2
@@ -653,9 +650,6 @@ def test_lon_backward_matches_exhaustive_oracle():
         * np.arange(NB, dtype=F) / F(NB - 1)
     to_idx = lambda vals: np.argmin(
         np.abs(vals[..., None] - js), axis=-1)
-    # padded a-levels (>= a_steps) are never addressed by the clamped
-    # trilerp; compare the logical levels only
-    AL = pp.a_steps
     np.testing.assert_array_equal(
-        to_idx(nodes[1:T - 1, :, :, :AL, 2]),
-        to_idx(oracle[1:T - 1, :, :, :AL, 2]))
+        to_idx(nodes[1:T - 1, ..., 2]),
+        to_idx(oracle[1:T - 1, ..., 2]))

@@ -55,7 +55,7 @@ def test_fused_matches_host_pipeline_closed_loop():
     from tpl_tpu.util import Bundle
 
     app_id = uuid.uuid4().hex[:8]
-    sim = SimStandalone(app_id=app_id, scenario_path="acc_2024/cv_3o")
+    sim = SimStandalone(app_id=app_id, scenario_path="demo/parked_oncoming")
     with sim.core.sh_state.lock():
         ss = sim.core.sh_state.sim
         ss.settings.running = True

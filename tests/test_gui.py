@@ -260,7 +260,7 @@ def test_paramset_selector(sim_and_gui):
     sim.update()
 
     sets = json.loads(_get(gui, "/paramsets.json")[1])
-    assert "default" in sets["planning"]["names"]
+    assert "demo" in sets["planning"]["names"]
     assert sets["planning"]["active"] in sets["planning"]["names"]
 
     # loading a set merges its values into the live store
@@ -268,7 +268,7 @@ def test_paramset_selector(sim_and_gui):
         sim.planning_app.sh_planners \
             .path_vel_decomp_planner.params.horizon = 77
     assert _post(gui, "/paramset",
-                 {"target": "planning", "name": "default"}) == 200
+                 {"target": "planning", "name": "demo"}) == 200
     with sim.planning_app.sh_planners.lock():
         assert (sim.planning_app.sh_planners
                 .path_vel_decomp_planner.params.horizon == 250)

@@ -12,11 +12,11 @@ SLOW = os.environ.get("TPL_TPU_SLOW_TESTS", "") == "1"
 
 
 def test_cv_3o_lattice_short():
-    """Truncated cv_3o window: drive violation-free through the first
-    replans (covers cold reinit, the 1 Hz warm reinit, and at least one
-    full lat-sampling + lon-DP solve)."""
+    """Truncated parked_oncoming window: drive violation-free through the
+    first replans (covers cold reinit, the 1 Hz warm reinit, and at least
+    one full lat-sampling + lon-DP solve)."""
     ticks, _runtimes = _run_scenario(
-        "acc_2024/cv_3o", "lattice_planner", max_t=3.0)
+        "demo/parked_oncoming", "lattice_planner", max_t=3.0)
     assert ticks >= 300
 
 
@@ -28,7 +28,7 @@ def test_lattice_ego_progresses():
 
     np.random.seed(0)
     sim = SimStandalone(app_id=uuid.uuid4().hex[:8],
-                        scenario_path="acc_2024/cv_3o")
+                        scenario_path="demo/parked_oncoming")
     with sim.planning_app.sh_planners.lock():
         sim.planning_app.sh_planners.active_planner = "lattice_planner"
     with sim.core.sh_state.lock():
@@ -46,8 +46,8 @@ def test_lattice_ego_progresses():
 
 @pytest.mark.skipif(not SLOW, reason="set TPL_TPU_SLOW_TESTS=1")
 @pytest.mark.parametrize("scenario", [
-    "acc_2024/cv_3o",
-    "acc_2024/ot_2o",
+    "demo/parked_oncoming",
+    "demo/country_overtake",
 ])
 def test_full_scenario_lattice(scenario):
     ticks, _runtimes = _run_scenario(scenario, "lattice_planner")

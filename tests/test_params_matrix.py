@@ -14,7 +14,7 @@ def test_every_planner_with_every_controller():
     from tpl_tpu.simulation import SimStandalone
 
     sim = SimStandalone(app_id=uuid.uuid4().hex[:8],
-                        scenario_path="acc_2024/cv_3o")
+                        scenario_path="demo/parked_oncoming")
     with sim.core.sh_state.lock():
         ss = sim.core.sh_state.sim
         ss.settings.running = True

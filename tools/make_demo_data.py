@@ -114,6 +114,56 @@ def make_country():
     return m
 
 
+def _twolane_centerline():
+    xs = np.arange(0.0, 500.0 + 1e-9, 10.0)
+    ys = 10.0 * np.sin(xs / 80.0)
+    return xs, ys
+
+
+def make_twolane():
+    """Two-lane rural road, 500 m.  The path is the right (ego) lane's
+    center; ``d_left`` spans the oncoming lane too, so an overtake stays
+    on the road."""
+    m = Map("twolane")
+    m.uuid = _stable_uuid("map-twolane")
+    m.closed_path = False
+    m.smoothing = 0.0
+    m.step_size_discr = 0.5
+
+    xs, ys = _twolane_centerline()
+    cps = np.zeros((len(xs), 6))
+    cps[:, 0] = xs
+    cps[:, 1] = ys
+    cps[:, 2] = 5.5     # d_left: own half lane + the oncoming lane
+    cps[:, 3] = 2.0     # d_right: lane edge
+    cps[:, 4] = 12.0
+    m.control_points = cps
+    return m
+
+
+def make_parallel_lane(ego_lane, name, offset):
+    """A path ``offset`` m left of ``ego_lane``'s path (negative: right),
+    in the same direction.  Traffic on the oncoming lane (offset 3.5)
+    drives with ``reverse``; a parking strip (offset -2.5) holds a car
+    half on the shoulder, reaching 0.5 m into the ego lane."""
+    m = Map(name)
+    m.uuid = _stable_uuid("map-" + name)
+    m.closed_path = False
+    m.smoothing = 0.0
+    m.step_size_discr = 0.5
+
+    reinit_map(ego_lane)
+    p = ego_lane.path[::20]
+    n = np.stack([-np.sin(p[:, 2]), np.cos(p[:, 2])], axis=1)
+    cps = np.zeros((len(p), 6))
+    cps[:, :2] = p[:, :2] + offset * n
+    cps[:, 2] = 2.0
+    cps[:, 3] = 2.0
+    cps[:, 4] = 12.0
+    m.control_points = cps
+    return m
+
+
 def _urban_centerline():
     xs = np.arange(0.0, 450.0 + 1e-9, 5.0)
     ys = 8.0 * (1.0 - np.cos(xs / 90.0))
@@ -207,14 +257,18 @@ def write_maps():
     country = make_country()
     urban, cross_pt = make_urban()
     crossroad = make_crossroad(cross_pt)
+    twolane = make_twolane()
 
-    store = util.Bundle(oval=oval, country=country, urban=urban,
-                        crossroad=crossroad)
+    maps = {"oval": oval, "country": country, "urban": urban,
+            "crossroad": crossroad, "twolane": twolane,
+            "twolane_oncoming": make_parallel_lane(
+                twolane, "twolane_oncoming", 3.5),
+            "twolane_parking": make_parallel_lane(
+                twolane, "twolane_parking", -2.5)}
     out = os.path.join(REPO_DATA, "maps", "demo")
-    util.save_state_dict(store, out)
+    util.save_state_dict(util.Bundle(**maps), out)
     print("wrote", out)
-    return {"oval": oval, "country": country, "urban": urban,
-            "crossroad": crossroad}
+    return maps
 
 
 # --------------------------------------------------------------------------
@@ -244,7 +298,8 @@ def _base_state(maps, map_name, s_ego, v_ego=0.0):
     return sim
 
 
-def _car(maps, map_name, s, v, target_v=None, use_idm=True, evade=""):
+def _car(maps, map_name, s, v, target_v=None, use_idm=True, evade="",
+         reverse=False):
     cmap = maps[map_name]
     if cmap.path is None:
         reinit_map(cmap)
@@ -253,9 +308,10 @@ def _car(maps, map_name, s, v, target_v=None, use_idm=True, evade=""):
     c = SimCar()
     c.uuid = _stable_uuid(f"car-{map_name}-{s:.0f}")
     c.map_uuid = map_name
+    c.reverse = reverse
     c.x = float(p[0])
     c.y = float(p[1])
-    c.yaw = float(p[2])
+    c.yaw = float(p[2] + np.pi if reverse else p[2])
     c.v = float(v)
     c.target_v = float(v if target_v is None else target_v)
     c.use_idm = use_idm
@@ -300,6 +356,24 @@ class SimulationManager:
 
     def update(self, sim):
         if sim.ego.x > {x_done} or sim.t > {timeout}:
+            sim.finished = True
+"""
+
+MANAGER_PASS_ONCOMING = """\
+class SimulationManager:
+    \"\"\"Finish at t >= {t_min} s once the ego is past x = {x_done} (the
+    parked car and a margin) and has met every oncoming car.  There is
+    no timeout: an ego that stalls never finishes, and the caller's own
+    time cap counts that as a failure.\"\"\"
+
+    def __init__(self, sim):
+        pass
+
+    def update(self, sim):
+        ego = sim.ego
+        passed = ego.x > {x_done} and all(
+            c.x < ego.x for c in sim.cars if c.reverse)
+        if sim.t >= {t_min} and passed:
             sim.finished = True
 """
 
@@ -380,6 +454,21 @@ def write_scenarios(maps):
     _write_scenario("demo/leader_brake", sim,
                     MANAGER_BRAKE.format(timeout=38.0))
 
+    # parked_oncoming: a car parked half on the shoulder, reaching into
+    # the ego lane, and two oncoming cars that meet the ego just past it
+    # (three objects); 20 s of driving, finished only if the ego got past
+    # both.  Its planning param set is its own (see write_scene_params).
+    sim = _base_state(maps, "twolane", s_ego=15.0, v_ego=8.0)
+    sim.init_planning_params = SCENE_PLANNING_PARAMS
+    parked = _car(maps, "twolane_parking", s=130.0, v=0.0, use_idm=False,
+                  evade="left")
+    sim.cars = [parked] + [
+        _car(maps, "twolane_oncoming", s=s, v=10.0, use_idm=False,
+             reverse=True) for s in (300.0, 380.0)]
+    _write_scenario("demo/parked_oncoming", sim,
+                    MANAGER_PASS_ONCOMING.format(
+                        t_min=20.0, x_done=float(parked.x + 45.0)))
+
     # urban_light: red light turns green at t = 10
     urban = maps["urban"]
     tl_item = urban.velocity_limits[0]
@@ -407,6 +496,28 @@ def write_scenarios(maps):
 
 # --------------------------------------------------------------------------
 # param sets
+
+SCENE_PLANNING_PARAMS = "parked_oncoming"
+
+
+def write_scene_params():
+    """The planning param set of demo/parked_oncoming: the vendored
+    "demo" set, except that poly_lat_dp_lon samples lateral targets over
+    its code-default range.  The demo set gives that family one lateral
+    target (l = 0), a lane keeper that stops for good behind a car
+    reaching into its lane."""
+    from tpl_tpu.planning.dyn_prog.poly_lat_kernel import PolyLatParams
+
+    data = util.load_state_dict(
+        os.path.join(REPO_DATA, "params", "planning", "demo"))
+    lat = PolyLatParams()
+    cpp_lat = data["poly_lat_dp_lon_planner"]["params"]["planner"]["cpp_lat"]
+    for k in ("l_dst_min", "l_dst_max", "l_dst_steps"):
+        cpp_lat[k] = getattr(lat, k)
+    out = os.path.join(REPO_DATA, "params", "planning",
+                       SCENE_PLANNING_PARAMS)
+    util.save_state_dict(data, out)
+    print("wrote", out)
 
 
 def write_params():
@@ -449,6 +560,7 @@ def main():
     write_scenarios(maps)
     if args.params:
         write_params()
+    write_scene_params()
 
 
 if __name__ == "__main__":

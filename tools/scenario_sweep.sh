@@ -27,7 +27,7 @@ out=${1:-/tmp/scenario_sweep.log}
 wall=${2:-1500}
 jobs=${3:-1}
 cd "$(dirname "$0")/.."
-scen_root=${SCEN_ROOT:-/root/reference/data/scenarios}
+scen_root=${SCEN_ROOT:-${TPL_TPU_DATA:?set TPL_TPU_DATA (or SCEN_ROOT) to a tpl data root}/scenarios}
 resdir="$out.d"
 mkdir -p "$resdir"
 cached=$(ls "$resdir" 2>/dev/null | wc -l)

@@ -11,6 +11,11 @@ Run e.g.:
     python -m tpl_tpu.application.mains env --app-id demo
     python -m tpl_tpu.application.mains planning --app-id demo
     python -m tpl_tpu.application.mains control --app-id demo
+
+Only the planning app takes the accelerator.  The env and control apps
+run on the host CPU backend (the tracking MPC is pinned to the host
+anyway): a JAX process reserves most of a GPU's memory when it first
+touches it, so a second process on the card would fail.
 """
 
 import os
@@ -95,6 +100,13 @@ def main():
     parser.add_argument("--params", default=None)
     parser.add_argument("--max-ticks", type=int, default=None)
     args = parser.parse_args()
+
+    if args.app != "planning":
+        # before the first JAX computation of this process; importing
+        # this module already imported jax, so the env var alone is late
+        import jax
+        os.environ["JAX_PLATFORMS"] = "cpu"
+        jax.config.update("jax_platforms", "cpu")
 
     if args.app == "env":
         env_main(args.app_id, args.params, args.max_ticks)

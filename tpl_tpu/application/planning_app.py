@@ -44,9 +44,9 @@ class PlanningApp:
     def _run_planner(self, name, planner):
         """One planner step, hardened against accelerator loss.
 
-        A TPU worker restart (preemption, tunnel drop) wipes all device
-        state, so a half-updated planner instance is unrecoverable in
-        place: publish an emergency trajectory — routed to
+        A device failure (a runtime error from the accelerator) can leave
+        device state lost or half-updated, so the planner instance is
+        unrecoverable in place: publish an emergency trajectory — routed to
         ConstAccController by the control app — and rebuild the planner
         from scratch against the restarted device.  This extends the
         reference's degrade-then-recover pattern

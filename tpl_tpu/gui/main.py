@@ -7,7 +7,7 @@ library/tpl/gui/tplgui, library/tpl/gui/main.py:13-40,
 library/tpl/gui/state_and_params.py:15-80). This framework keeps the same
 architecture — a *separate process* that talks only to the stores — but
 serves the view over HTTP with the standard library instead of an OpenGL
-immediate-mode UI, so it works headless and over a tunnel:
+immediate-mode UI, so it works headless and from a remote browser:
 
   GET  /            HTML live view (scene image + stats, auto-refresh)
   GET  /state.json  live state: t, ego, planner/controller names +

@@ -57,15 +57,11 @@ def _interp_indices(x0, dx, x, size, xp):
     return start, end, a
 
 
-# Gathers are slow on TPU inside scans (single-instance AND batched: a
-# gather-based lerp measured 7x slower on the batched MPC than the
-# hat-function contraction); for moderate table sizes an explicit
-# hat-function / one-hot contraction maps to fused VPU ops instead.
-# Semantics are identical to the clamped-index lookups.  Set
-# TPL_TPU_ONEHOT_INTERP=0 to fall back to gathers (e.g. for profiling).
-import os
-
-_ONEHOT_MAX = 0 if os.environ.get("TPL_TPU_ONEHOT_INTERP") == "0" else 1024
+# For tables up to _ONEHOT_MAX entries the lookups are an explicit
+# hat-function / one-hot contraction, which fuses into the surrounding
+# elementwise ops instead of issuing a gather inside every scan step.
+# Semantics are identical to the clamped-index lookups used above it.
+_ONEHOT_MAX = 1024
 
 
 def _onehot_take(arr, idx):
@@ -87,25 +83,6 @@ def _onehot_take(arr, idx):
 
 def _is_zero(t):
     return isinstance(t, jax.custom_derivatives.SymbolicZero)
-
-
-# Pallas kernel bodies cannot lower custom_jvp primitives registered with
-# symbolic_zeros; kernels only need the primal anyway.  Tracing a kernel
-# under `primal_only()` routes the lookups to the raw implementations.
-import contextlib as _contextlib
-import contextvars as _contextvars
-
-_PRIMAL_ONLY = _contextvars.ContextVar("tpl_tpu_interp_primal_only",
-                                       default=False)
-
-
-@_contextlib.contextmanager
-def primal_only():
-    tok = _PRIMAL_ONLY.set(True)
-    try:
-        yield
-    finally:
-        _PRIMAL_ONLY.reset(tok)
 
 
 @jax.custom_jvp
@@ -218,7 +195,7 @@ def _hat_lerp_multi(q, mat):
 
     One hat-weight construction amortized over all C tables — the weight
     build dominates when several lookups share the query (profiled on the
-    batched MPC), and the contraction maps to the MXU.
+    batched MPC), and the contraction is one matrix product.
     """
     n = mat.shape[0]
     qc = jnp.clip(q, 0.0, n - 1.0)
@@ -261,8 +238,7 @@ def lerp_multi(x0, dx, x, mat):
     mat = xp.asarray(mat)
     n = mat.shape[0]
     if xp is jnp and n <= _ONEHOT_MAX:
-        f = _hat_lerp_multi.fun if _PRIMAL_ONLY.get() else _hat_lerp_multi
-        return f((jnp.asarray(x) - x0) / dx, mat)
+        return _hat_lerp_multi((jnp.asarray(x) - x0) / dx, mat)
     start, end, a = _interp_indices(x0, dx, x, n, xp)
     a = a[..., None] if xp.ndim(a) else a
     return (1.0 - a) * mat[start] + a * mat[end]
@@ -278,8 +254,7 @@ def lerp(x0, dx, x, arr):
     arr = xp.asarray(arr)
     n = arr.shape[0]
     if xp is jnp and n <= _ONEHOT_MAX:
-        f = _hat_lerp.fun if _PRIMAL_ONLY.get() else _hat_lerp
-        return f((jnp.asarray(x) - x0) / dx, arr)
+        return _hat_lerp((jnp.asarray(x) - x0) / dx, arr)
     start, end, a = _interp_indices(x0, dx, x, n, xp)
     return (1.0 - a) * arr[start] + a * arr[end]
 
@@ -290,8 +265,7 @@ def lerp_angle(x0, dx, x, arr):
     arr = xp.asarray(arr)
     n = arr.shape[0]
     if xp is jnp and n <= _ONEHOT_MAX:
-        f = _hat_lerp_angle.fun if _PRIMAL_ONLY.get() else _hat_lerp_angle
-        return f((jnp.asarray(x) - x0) / dx, arr)
+        return _hat_lerp_angle((jnp.asarray(x) - x0) / dx, arr)
     start, end, a = _interp_indices(x0, dx, x, n, xp)
     return arr[start] + short_angle_dist(arr[start], arr[end]) * a
 
@@ -301,8 +275,7 @@ def box_interp(dx, x, arr):
     xp = _xp(x, arr)
     arr = xp.asarray(arr)
     if xp is jnp and arr.shape[0] <= _ONEHOT_MAX:
-        f = _hat_box.fun if _PRIMAL_ONLY.get() else _hat_box
-        return f(jnp.asarray(x) / dx, arr)
+        return _hat_box(jnp.asarray(x) / dx, arr)
     i = xp.clip(xp.floor(x / dx), 0, arr.shape[0] - 1).astype(int)
     return arr[i]
 

@@ -7,7 +7,7 @@ Re-designs the reference's CUDA ``PolyCubic``/``PolyQuintic``/``PolySeptic``/
 library/src/poly_interp.cu) as batched, jit-friendly coefficient solves:
 coefficients come from a single constant matrix-vector product, so a whole
 grid of candidate polynomials (e.g. the 21x13 lateral sampling of the
-PolyLatPlanner) is one matmul on the MXU.
+PolyLatPlanner) is one matmul.
 
 Works with numpy and jax.numpy inputs alike.
 """

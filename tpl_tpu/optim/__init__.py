@@ -17,7 +17,6 @@ from tpl_tpu.optim.problems import (
     trajectory_tracking_mpc_time,
 )
 
-# genopt-compatible sympy frontend + ready-made solver-class module
-# (import as modules to avoid shadowing the problem factories above:
-#  `from tpl_tpu.optim import genopt, optimizers`)
-from tpl_tpu.optim import symext
+# The genopt-compatible sympy frontend (symext, genopt, optimizers) is
+# imported on use only, `from tpl_tpu.optim import genopt`, so the main
+# path needs no sympy.

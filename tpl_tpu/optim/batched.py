@@ -1,15 +1,14 @@
 """
 Batch-in-lanes iLQR: a throughput-oriented variant of the solver core
-where the scenario batch lives in the LAST (TPU lane) dimension.
+where the scenario batch lives in the LAST (minor) dimension.
 
 ``jax.vmap`` over :func:`tpl_tpu.optim.ilqr.make_update_fn` produces
-(B, nx, nx)-shaped intermediates whose last dimensions (e.g. 7x7) occupy
-only a few lanes of each (8, 128) vector register. This module instead
-keeps every tensor shaped (..., B): per-step matrices are (nx, nx, B),
-matrix products become lane-parallel einsums, and derivatives are obtained
-with the basis-vector jvp/vjp trick ((nx + nu) forward passes instead of
-per-instance jacobians), so all elementwise work vectorizes across the
-batch at full lane utilization.
+(B, nx, nx)-shaped intermediates whose minor dimensions are tiny (e.g.
+7x7). This module instead keeps every tensor shaped (..., B): per-step
+matrices are (nx, nx, B), matrix products become batch-parallel einsums,
+and derivatives are obtained with the basis-vector jvp/vjp trick
+((nx + nu) forward passes instead of per-instance jacobians), so all
+elementwise work vectorizes across the contiguous batch axis.
 
 The problem's dynamics/cost/constraint functions are reused unchanged:
 they index the state by position (x[0], x[1], ...), so feeding (nx, B)

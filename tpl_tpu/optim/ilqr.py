@@ -1,7 +1,7 @@
 """
 Batched augmented-Lagrangian iLQR solver core.
 
-This is the TPU-native replacement for the reference's ``genopt`` pipeline
+This is the JAX replacement for the reference's ``genopt`` pipeline
 (sympy -> generated C, reference: library/tpl/optim/genopt.py and
 library/tpl/optim/templates/optim.c). Instead of code generation, the user
 supplies ``dynamics`` / ``cost`` / ``constraints`` as JAX functions; the

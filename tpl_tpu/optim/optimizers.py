@@ -24,7 +24,7 @@ from tpl_tpu.optim.solver import Solver
 
 # (problem factory, horizon capacity). Solvers default to the host CPU
 # backend: single-instance receding-horizon solves are latency-bound; use
-# Solver/batched directly for TPU-batched solving.
+# Solver/batched directly for batched solving on the accelerator.
 _FACTORIES = {
     "trajectory_tracking_mpc": (problems.trajectory_tracking_mpc, 300),
     "trajectory_tracking_mpc_time": (problems.trajectory_tracking_mpc_time,

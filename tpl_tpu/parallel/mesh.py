@@ -5,8 +5,8 @@ The reference has no distributed layer (single GPU + shared-memory
 processes, SURVEY §2.4); this module is the new scale-out axis demanded by
 the north star: scenario/obstacle-hypothesis batches are sharded over a
 ``jax.sharding.Mesh`` ("dp" axis), solvers run per-shard, and reductions
-(best candidate cost, fleet statistics) ride ICI collectives via
-``shard_map``. Multi-host pods extend the same mesh over DCN with
+(best candidate cost, fleet statistics) are XLA collectives (NCCL
+between GPUs) via ``shard_map``. Several hosts extend the same mesh with
 ``jax.distributed``.
 """
 
@@ -44,7 +44,7 @@ def shard_scenarios(tree, mesh, axis="dp"):
 
 def sharded_best_candidate(batched_solve, mesh, axis="dp"):
     """Wrap a batched solve so the batch shards over the mesh and the
-    globally best candidate cost is reduced over ICI.
+    globally best candidate cost is reduced across the mesh.
 
     batched_solve(batch_inputs...) -> (outputs, costs (B_local,))
     Returns solve(inputs...) -> (outputs, costs, global_best_cost).

@@ -2,7 +2,7 @@
 Longitudinal DP planner kernel: value iteration over the (s, v, a) grid
 along a fixed path with jerk actions.
 
-TPU-native re-design of the reference's CUDA kernels (reference:
+JAX re-design of the reference's CUDA kernels (reference:
 library/src/dyn_prog/lon_planner.cu): per-thread node evaluations become
 whole-grid vectorized evaluations; trilinear texture value lookups become
 manual trilinear interpolation. The planner follows a path produced by the
@@ -16,6 +16,9 @@ constr] (lon_planner.cuh:55-67).
 import numpy as np
 import jax
 import jax.numpy as jnp
+
+from tpl_tpu.planning.dyn_prog.dp_common import (
+    lex_argmin, recip, unit_grid)
 
 # lon state columns
 LC_T, LC_S, LC_V, LC_A, LC_J, LC_COST, LC_CONSTR = range(7)
@@ -135,24 +138,14 @@ def lon_traj_states(traj, ts):
 
 
 def make_lon_solver(spec):
-    """spec: t_steps, s_steps, v_steps, a_steps, path_steps (static);
-    optional vmax_slim (A/B knob: gather only the vmax channel in the
-    backward pass instead of full interp_path rows)."""
-    _VMAX_SLIM = bool(spec.get("vmax_slim", False))
-    _SKIP_FWD = bool(spec.get("skip_forward", False))   # profiling knob
+    """spec: t_steps, s_steps, v_steps, a_steps, path_steps (static)."""
     T = spec["t_steps"]
     S = spec["s_steps"]
     V = spec["v_steps"]
-    AL = spec["a_steps"]          # logical a-grid size (coordinate mapping)
+    A = spec["a_steps"]
     P = spec["path_steps"]
     NB = 9
     NF = 21
-
-    # Pad the a-axis to a multiple of 8: certain raw sizes (19, 20) hit an
-    # XLA:TPU codegen fault in the trilinear value-gather, and multiples of
-    # 8 tile cleanly onto the vector unit anyway. Padded levels sit above
-    # a_max and are never addressed: trilerp clamps its z index to AL - 1.
-    A = AL if AL % 8 == 0 else AL + (8 - AL % 8)
 
     f32 = jnp.float32
 
@@ -176,13 +169,13 @@ def make_lon_solver(spec):
         y = jnp.clip((v - pp["v_min"]) / (pp["v_max"] - pp["v_min"])
                      * (V - 1), 0.0, V - 1.0)
         z = jnp.clip((a - pp["a_min"]) / (pp["a_max"] - pp["a_min"])
-                     * (AL - 1), 0.0, AL - 1.0)
+                     * (A - 1), 0.0, A - 1.0)
         x0 = jnp.floor(x).astype(jnp.int32)
         y0 = jnp.floor(y).astype(jnp.int32)
         z0 = jnp.floor(z).astype(jnp.int32)
         x1 = jnp.minimum(x0 + 1, S - 1)
         y1 = jnp.minimum(y0 + 1, V - 1)
-        z1 = jnp.minimum(z0 + 1, AL - 1)
+        z1 = jnp.minimum(z0 + 1, A - 1)
         ax = (x - x0)[..., None]
         ay = (y - y0)[..., None]
         az = (z - z0)[..., None]
@@ -197,12 +190,11 @@ def make_lon_solver(spec):
     def eval_grid(nodes_next, t, t_idx, dist_path, path, pp, dt, is_last):
         """Evaluate all (s, v, a) nodes for one backward slice."""
         ss = pp["s_min"] + jnp.arange(S, dtype=f32) \
-            * (pp["s_max"] - pp["s_min"]) / (S - 1)
+            * ((pp["s_max"] - pp["s_min"]) * recip(S - 1))
         vs = pp["v_min"] + jnp.arange(V, dtype=f32) \
-            * (pp["v_max"] - pp["v_min"]) / (V - 1)
-        # logical step spacing; padded levels (i >= AL) land above a_max
+            * ((pp["v_max"] - pp["v_min"]) * recip(V - 1))
         aas = pp["a_min"] + jnp.arange(A, dtype=f32) \
-            * (pp["a_max"] - pp["a_min"]) / (AL - 1)
+            * ((pp["a_max"] - pp["a_min"]) * recip(A - 1))
 
         cps = interp_path(path, ss, pp)                       # (S, 7)
         v_max_s = cps[:, PC_VMAX]                             # (S,)
@@ -229,11 +221,11 @@ def make_lon_solver(spec):
             return node
 
         js = pp["j_min"] + (pp["j_max"] - pp["j_min"]) \
-            * jnp.arange(NB, dtype=f32) / (NB - 1)            # (NB,)
+            * unit_grid(NB)                                   # (NB,)
 
         # next states (lonDynamics)
         ds_change = (v_g[..., None] * dt + 0.5 * a_g[..., None] * dt * dt
-                     + js[None, None, None, :] * dt ** 3 / 6.0)
+                     + js[None, None, None, :] * dt ** 3 * recip(6))
         s_change = jnp.maximum(0.0, ds_change)                # (1,V,A,NB)->bc
         sn = s_g[..., None] + s_change                        # (S,V,A,NB)
         vn = jnp.maximum(0.0, v_g[..., None] + a_g[..., None] * dt
@@ -248,13 +240,9 @@ def make_lon_solver(spec):
         # by a constant weight) and only the (v, a) corners need real
         # lookups.  Equivalent to trilerp(nodes_next, sn, vn, an) but
         # without the 8-corner random gather over the full (S, V, A, NB)
-        # tensor — measured 3.2x for the solve on TPU v5e (335 -> 105 ms
-        # lon stage, tools/poly_chain_probe.py).  Gather layout variants
-        # (middle-axis take, row-contiguous take, one-hot MXU
-        # contraction below) all land within noise of each other: the
-        # remaining per-slice cost is not the corner lookup.
+        # tensor.
         NP = V * A * NB
-        s_step_x = (pp["s_max"] - pp["s_min"]) / (S - 1)
+        s_step_x = (pp["s_max"] - pp["s_min"]) * recip(S - 1)
         f_c = (s_change[0] / s_step_x).reshape(NP)            # (NP,)
         k_c = jnp.floor(f_c)
         ax_c = f_c - k_c                                      # (P,)
@@ -264,32 +252,24 @@ def make_lon_solver(spec):
                      * (V - 1), 0.0, V - 1.0).reshape(NP)
         an_b = jnp.broadcast_to(an, (1, V, A, NB))
         z = jnp.clip((an_b[0] - pp["a_min"]) / (pp["a_max"] - pp["a_min"])
-                     * (AL - 1), 0.0, AL - 1.0).reshape(NP)
+                     * (A - 1), 0.0, A - 1.0).reshape(NP)
         y0 = jnp.floor(y).astype(jnp.int32)
         z0 = jnp.floor(z).astype(jnp.int32)
         y1 = jnp.minimum(y0 + 1, V - 1)
-        z1 = jnp.minimum(z0 + 1, AL - 1)
-        ay = (y - y0)[:, None, None]
-        az = (z - z0)[:, None, None]
+        z1 = jnp.minimum(z0 + 1, A - 1)
+        wy = (y - y0)[:, None]                                # (NP, 1)
+        wz = (z - z0)[:, None]
 
-        # The (v, a)-corner bilerp is a 4-nonzero-per-row sparse matrix
-        # over the V*A table rows.  TPU gathers run on the slow
-        # element-at-a-time path (~5M elem/ms measured — both DP kernels
-        # sit at that floor regardless of gather layout), so express the
-        # bilerp as a dense one-hot contraction instead and let the MXU
-        # do the data movement: W (NP, V*A) @ table (V*A, S*4).
+        # The (v, a)-corner bilerp: four row gathers from the (V*A, S*4)
+        # table.  (A one-hot matrix product over the whole table did the
+        # same work in 3.85 ms per solve against 1.15 ms on an H100 at
+        # 10x201x37x20, and summed in an order each backend picks.)
         nodes_vas = jnp.transpose(nodes_next, (1, 2, 0, 3)) \
             .reshape(V * A, S * 4)
-        iota_va = jnp.arange(V * A, dtype=jnp.int32)
-        wy0 = 1.0 - ay[:, 0, 0]
-        wz0 = 1.0 - az[:, 0, 0]
-        oh = lambda idx: (idx[:, None] == iota_va).astype(f32)
-        W = (oh(y0 * A + z0) * (wy0 * wz0)[:, None]
-             + oh(y1 * A + z0) * ((1 - wy0) * wz0)[:, None]
-             + oh(y0 * A + z1) * (wy0 * (1 - wz0))[:, None]
-             + oh(y1 * A + z1) * ((1 - wy0) * (1 - wz0))[:, None])
-        B = jnp.dot(W, nodes_vas,
-                    preferred_element_type=f32).reshape(NP, S, 4)
+        row = lambda yi, zi: nodes_vas[yi * A + zi]           # (NP, S*4)
+        B = ((row(y0, z0) * (1 - wy) + row(y1, z0) * wy) * (1 - wz)
+             + (row(y0, z1) * (1 - wy) + row(y1, z1) * wy) * wz
+             ).reshape(NP, S, 4)
         s_iota = jnp.arange(S, dtype=jnp.int32)[None, :]
         idx0 = jnp.clip(s_iota + k_c[:, None], 0, S - 1)
         idx1 = jnp.clip(s_iota + k_c[:, None] + 1, 0, S - 1)
@@ -302,42 +282,24 @@ def make_lon_solver(spec):
         nn = V0 * (1 - ax_row[..., None]) + V1 * ax_row[..., None]
         nn = nn.reshape(V, A, NB, S, 4).transpose(3, 0, 1, 2, 4)
 
-        if spec.get("probe_stage") == "lookup":
-            # profiling probe: slice cost up to (and incl.) the value
-            # lookup only; cheap reduce keeps the carry shape
-            return jnp.concatenate(
-                [nn.mean(axis=3), jnp.zeros((S, V, A, 0), f32)], axis=-1)
-
         cost = state_cost[..., None] + nn[..., 0]
         constr = state_constr[..., None] + nn[..., 1]
         cost += pp["w_snap"] * (nn[..., 2] - js[None, None, None, :]) ** 2
         cost += pp["w_j"] * (js[None, None, None, :] * dt) ** 2
 
-        if _VMAX_SLIM:
-            # gather ONLY the vmax channel (the full-row interp_path
-            # materializes a (S*V*A*NB, 7) intermediate for one column)
-            vmax_tab = path[:, PC_VMAX]
-            aq = sn / pp["path_step_size"]
-            q0 = jnp.clip(jnp.floor(aq), 0, P - 1).astype(jnp.int32)
-            q1 = jnp.clip(jnp.ceil(aq), 0, P - 1).astype(jnp.int32)
-            al_q = aq - q0
-            v_max_n = vmax_tab[q0] * (1.0 - al_q) + vmax_tab[q1] * al_q
-        else:
-            v_max_n = interp_path(path, sn.reshape(-1), pp)[:, PC_VMAX] \
-                .reshape(sn.shape)
+        v_max_n = interp_path(path[:, PC_VMAX:PC_VMAX + 1], sn.reshape(-1),
+                              pp).reshape(sn.shape)
         constr += jnp.maximum(0.0, vn - v_max_n)
         constr += jnp.maximum(0.0, s_change - s_dist[:, None, None, None])
         constr += jnp.maximum(0.0, pp["a_min"] - an)
         constr += jnp.maximum(0.0, an - pp["a_max"])
 
-        cmin = jnp.min(constr, axis=-1, keepdims=True)
-        cost_m = jnp.where(constr <= cmin, cost, jnp.inf)
-        jidx = jnp.argmin(cost_m, axis=-1)
+        jidx, cmin, _, cost = lex_argmin(constr, cost)
         j_best = js[jidx]
-        cost_best = jnp.take_along_axis(cost_m, jidx[..., None],
+        cost_best = jnp.take_along_axis(cost, jidx[..., None],
                                         axis=-1)[..., 0]
 
-        node = jnp.stack([cost_best, cmin[..., 0], j_best,
+        node = jnp.stack([cost_best, cmin, j_best,
                           jnp.zeros((S, V, A), f32)], axis=-1)
         return node
 
@@ -360,11 +322,11 @@ def make_lon_solver(spec):
 
         if choose_action:
             js = pp["j_min"] + (pp["j_max"] - pp["j_min"]) \
-                * jnp.arange(n_actions, dtype=f32) / (n_actions - 1)
+                * unit_grid(n_actions)
         else:
             js = tp[LC_J][None]
 
-        ds_change = v * dt + 0.5 * a * dt * dt + js * dt ** 3 / 6.0
+        ds_change = v * dt + 0.5 * a * dt * dt + js * dt ** 3 * recip(6)
         s_change = jnp.maximum(0.0, ds_change)
         sn = s + s_change
         vn = jnp.maximum(0.0, v + a * dt + 0.5 * js * dt * dt)
@@ -381,16 +343,21 @@ def make_lon_solver(spec):
         constr += jnp.maximum(0.0, pp["a_min"] - an)
         constr += jnp.maximum(0.0, an - pp["a_max"])
 
-        cmin = jnp.min(constr)
-        cost_m = jnp.where(constr <= cmin, cost, jnp.inf)
-        jidx = jnp.argmin(cost_m)
+        jidx, cmin, _, cost = lex_argmin(constr, cost)
         j_best = js[jidx]
-        cost_best = cost_m[jidx]
+        cost_best = cost[jidx]
 
         tp = tp.at[LC_J].set(jnp.where(is_last, tp[LC_J], j_best))
         tp = tp.at[LC_COST].set(jnp.where(is_last, state_cost, cost_best))
         tp = tp.at[LC_CONSTR].set(jnp.where(is_last, tp[LC_CONSTR], cmin))
         return tp
+
+    def backward_node(nodes_next, i, dist_path, path, pp):
+        """Backward slice ``i`` from the next slice's nodes."""
+        t = pp["dt_start"] + (i.astype(f32) - 1.0) * pp["dt"]
+        t_idx = jnp.clip(i, 0, T - 1).astype(jnp.int32)
+        return eval_grid(nodes_next, t, t_idx, dist_path, path, pp,
+                         pp["dt"], False)
 
     @jax.jit
     def solve(dist_path, path, pp, x0):
@@ -398,12 +365,6 @@ def make_lon_solver(spec):
         pp: param dict or packed f32 vector (LonParams.packed())."""
         if not isinstance(pp, dict):
             pp = unpack_lon_pp(pp)
-        # backward
-        def make_node(i, carry):
-            t = pp["dt_start"] + (i.astype(f32) - 1.0) * pp["dt"]
-            t_idx = jnp.clip(i, 0, T - 1).astype(jnp.int32)
-            return eval_grid(carry, t, t_idx, dist_path, path, pp,
-                             pp["dt"], False)
 
         nodes_final = eval_grid(
             jnp.zeros((S, V, A, 4), f32),
@@ -411,7 +372,7 @@ def make_lon_solver(spec):
             pp, pp["dt"], True)
 
         def bwd(carry, i):
-            node = make_node(i, carry)
+            node = backward_node(carry, i, dist_path, path, pp)
             return node, node
 
         idxs = jnp.arange(T - 2, 0, -1)
@@ -438,7 +399,7 @@ def make_lon_solver(spec):
             tn = tn.at[LC_S].set(jnp.maximum(
                 tp_out[LC_S],
                 tp_out[LC_S] + tp_out[LC_V] * dt_i
-                + 0.5 * tp_out[LC_A] * dt_i ** 2 + j * dt_i ** 3 / 6.0))
+                + 0.5 * tp_out[LC_A] * dt_i ** 2 + j * dt_i ** 3 * recip(6)))
             tn = tn.at[LC_V].set(jnp.maximum(
                 0.0, tp_out[LC_V] + tp_out[LC_A] * dt_i
                 + 0.5 * j * dt_i ** 2))
@@ -446,8 +407,6 @@ def make_lon_solver(spec):
             tn = tn.at[LC_J].set(j)
             return tn, tp_out
 
-        if _SKIP_FWD:
-            return nodes, jnp.zeros((T, 7), f32)
         _, traj = jax.lax.scan(fwd, x0.astype(f32), jnp.arange(T))
         return nodes, traj
 
@@ -473,4 +432,13 @@ def make_lon_solver(spec):
                               (jnp.arange(len(traj)), traj.astype(f32)))
         return out
 
+    @jax.jit
+    def backward_step(nodes_next, i, dist_path, path, pp):
+        """One backward slice as the solve scans it (see
+        lat_lon_kernel's backward_step for why it is exposed)."""
+        if not isinstance(pp, dict):
+            pp = unpack_lon_pp(pp)
+        return backward_node(nodes_next, i, dist_path, path, pp)
+
+    solve.backward_step = backward_step
     return solve, reeval

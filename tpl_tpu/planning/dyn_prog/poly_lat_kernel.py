@@ -3,7 +3,7 @@ Polynomial lateral path planner: samples a (l_dst, s_dst) grid of quintic
 lateral polynomials, evaluates per-arclength costs / times / collisions
 against the DP environment, and selects the best path.
 
-TPU-native re-design of the reference's five CUDA kernels (reference:
+JAX re-design of the reference's five CUDA kernels (reference:
 library/src/dyn_prog/poly_lat_planner.cu): the whole candidate tensor
 (l_dst x s_dst x s) is evaluated at once; the quintic coefficient solves
 for all candidates are one batched matrix product.

@@ -5,7 +5,7 @@ quintic-lateral polynomial connections and integrating jerk / velocity /
 lateral / occupancy costs, followed by backward cost propagation and a
 backtrack.
 
-TPU-native re-design of the reference's CUDA planner (reference:
+JAX re-design of the reference's CUDA planner (reference:
 library/src/dyn_prog/poly_planner.cu): one thread per edge becomes one
 vectorized evaluation over the whole edge tensor per evaluation step;
 the cost relaxation becomes a segment-min over edges grouped by start

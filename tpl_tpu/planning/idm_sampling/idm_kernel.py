@@ -3,7 +3,7 @@ IDM sampling rollout planner kernel: closed-loop forward simulation of
 lateral-offset candidates with Stanley lateral control and IDM longitudinal
 control, evaluated for collisions, interactions and comfort.
 
-TPU-native re-design of the reference's C++/OpenMP planner (reference:
+JAX re-design of the reference's C++/OpenMP planner (reference:
 library/src/idm_sampling.cpp): all candidates roll out in one
 vmap-over-candidates lax.scan; the per-step leader lookups, stop-point
 scans, reference-line projections and the SAT collision checks are
@@ -99,9 +99,8 @@ V_T, V_X, V_Y, V_H, V_ST, V_V, V_A, V_S, V_L = range(9)
 def _bracket_by_t(ts, t):
     """Index and weight of the segment containing t on a sorted (P,)
     time grid.  Pure comparison/reduction form: ``searchsorted`` lowers
-    to a binary-search loop of dynamic slices on TPU (slow and
-    unvectorizable under vmap), while a sum of comparisons over P=16 is
-    one fused VPU pass."""
+    to a binary-search loop of dynamic slices, while a sum of comparisons
+    over P=16 is one fused elementwise pass."""
     n = ts.shape[0]
     i = jnp.clip(jnp.sum((ts <= t).astype(jnp.int32)) - 1, 0, n - 2)
     a = jnp.clip((t - ts[i]) / jnp.maximum(ts[i + 1] - ts[i], 1e-9),
@@ -111,8 +110,8 @@ def _bracket_by_t(ts, t):
 
 def _two_hot(n, i, a, dtype):
     """Weight vector with (1-a) at i and a at i+1, built from
-    comparisons: the ``zeros().at[i].set()`` form lowers to a scatter,
-    which TPUs execute serially."""
+    comparisons: the ``zeros().at[i].set()`` form lowers to a
+    scatter."""
     ar = jnp.arange(n)
     return (jnp.where(ar == i, 1.0 - a, 0.0)
             + jnp.where(ar == i + 1, a, 0.0)).astype(dtype)
@@ -131,9 +130,8 @@ def _interp_hulls_by_t(ts, hulls, t):
     """Linear interp of (P, K, 2) hull sweeps by times ts (P,).
 
     Same math as :func:`_interp_by_t`; the 2-hot contraction avoids
-    both the scatter (serial on TPU) and the gather form, which
-    materializes a (cand, T, O, P, K) fusion output under the
-    candidate/time vmaps and overflows HBM beyond ~1k candidates."""
+    both the scatter and the gather form, which materializes a
+    (cand, T, O, P, K) fusion output under the candidate/time vmaps."""
     i, a = _bracket_by_t(ts, t)
     w = _two_hot(ts.shape[0], i, a, hulls.dtype)
     return jnp.einsum("p,pkc->kc", w, hulls)
@@ -417,8 +415,7 @@ def make_idm_kernel(spec):
 
     def _ref_ch_lerp(ref_line, ref_step, s, ch):
         """Lerp one ref-line channel at stations s (..., C), gather
-        form (used where the index count is small — per-element gathers
-        execute serially on TPU at ~3 ns/element, measured)."""
+        form (used where the index count is small)."""
         q = s / ref_step
         i0 = jnp.clip(jnp.floor(q), 0, NR - 1).astype(jnp.int32)
         i1 = jnp.clip(jnp.ceil(q), 0, NR - 1).astype(jnp.int32)
@@ -429,9 +426,9 @@ def make_idm_kernel(spec):
     def _ref_lerp_2hot(ref_line, ref_step, s, chs):
         """Lerp several ref-line channels at stations s (C,) via a
         two-hot contraction: builds the (NR, C) lerp-weight matrix from
-        comparisons and contracts it with the channel table on the
-        MXU/VPU — ~10x faster than the serial per-element gather inside
-        the rollout scan (measured v5e).  Returns (len(chs), C)."""
+        comparisons and contracts it with the channel table (one matrix
+        product instead of a per-element gather inside the rollout
+        scan).  Returns (len(chs), C)."""
         q = s / ref_step
         i0 = jnp.clip(jnp.floor(q), 0.0, NR - 1.0)
         i1 = jnp.clip(jnp.ceil(q), 0.0, NR - 1.0)
@@ -848,7 +845,7 @@ def make_idm_kernel(spec):
 
     # ---- lanes-form evaluate ------------------------------------------
     # Same semantics as `evaluate` (validated against it in
-    # tests/test_idm_kernel.py), restructured for the TPU memory system:
+    # tests/test_idm_kernel.py), restructured for throughput:
     #
     #  * everything shared across candidates is computed ONCE — the
     #    rollout time grid is identical for every candidate (the scan
@@ -856,20 +853,16 @@ def make_idm_kernel(spec):
     #    hulls/states sampled on it, their edge normals and their
     #    self-projections are candidate-independent;
     #  * the candidate axis C lives in the MINOR dimension of every
-    #    per-candidate tensor, filling the 128-wide vector lanes (the
-    #    vmap form builds (C, T, O, K, 2) tensors whose minor dims of 2
-    #    and 16 waste up to 64x of every HBM line on layout padding);
+    #    per-candidate tensor (the vmap form builds (C, T, O, K, 2)
+    #    tensors whose minor dims are 2 and 16);
     #  * the per-time-step screens run under one lax.scan, so their
-    #    intermediates are (O, K, C)-sized and stay on-chip instead of
-    #    materializing (C, T, O, K, ...) in HBM;
+    #    intermediates are (O, K, C)-sized instead of materializing
+    #    (C, T, O, K, ...) in device memory;
     #  * the ego hull is a rectangle, so its side of every SAT test
     #    collapses to an ego-frame interval test and an analytic
     #    center±extent projection onto the obstacle's edge normals —
     #    exactly equivalent to the generic polygon test (same trick as
     #    the poly-sampling screen, poly_kernel.py).
-    #
-    # Measured (v5e, 1024-candidate chunk, forced execution): the vmap
-    # evaluate costs ~437 ms; this form replaces it.
 
     S_SEG = P - 1
 
@@ -1090,8 +1083,8 @@ def make_idm_kernel(spec):
                         * jnp.minimum(0.0, states[:, :, V_A]) ** 2,
                         axis=1)
 
-        # road-edge penalty (channel-restricted lookups: per-element
-        # gathers are serial on TPU, so gather 2 channels, not 7)
+        # road-edge penalty (channel-restricted lookups: gather the 2
+        # channels it reads, not all 7)
         s_ct = states[:, :, V_S]
         dl_rp = _ref_ch_lerp(ref_line, ref_step, s_ct, 5)     # (C, T)
         dr_rp = _ref_ch_lerp(ref_line, ref_step, s_ct, 6)
@@ -1163,8 +1156,7 @@ def make_idm_kernel(spec):
     @jax.jit
     def run_rollout(init_ref, init_con, l_trgs, d_stops, dt_replan,
                     ref_line, ref_step, objs, pp):
-        """Lanes rollout stage alone (profiling/bisection surface, used
-        by tools/roofline.py)."""
+        """Lanes rollout stage alone (tests compare it with rollout_ref)."""
         return rollout_lanes(init_ref, init_con, l_trgs, d_stops,
                              dt_replan, ref_line, ref_step,
                              ref_line[:, :2], objs, pp)

@@ -2,7 +2,7 @@
 tplsim CLI: run closed-loop simulation scenarios headlessly.
 
 Usage:
-    python -m tpl_tpu.simulation.tplsim run --scenario acc_2024/cv_3o \
+    python -m tpl_tpu.simulation.tplsim run --scenario demo/parked_oncoming \
         --headless --max-t 25
 
 (reference: library/tpl/simulation/tplsim)

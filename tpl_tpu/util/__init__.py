@@ -121,20 +121,16 @@ def runtime(func):
 
 _REPO_DATA = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "data")
-_REFERENCE_DATA = "/root/reference/data"
 
 
 def data_roots():
     """Ordered data roots: $TPL_TPU_DATA (a user's existing tpl data
-    directory — the format is compatible), then the vendored repo data,
-    then the reference checkout if one is mounted."""
+    directory — the format is compatible), then the vendored repo data."""
     roots = []
     env = os.environ.get("TPL_TPU_DATA")
     if env:
         roots.append(env)
     roots.append(_REPO_DATA)
-    if os.path.isdir(_REFERENCE_DATA):
-        roots.append(_REFERENCE_DATA)
     return roots
 
 
